@@ -2,7 +2,7 @@
 
 Tour of the distribution toolkit on arbitrary (wrapped / uneven /
 overlapping) partitions — everything the reference's `copy()` entry
-does (dist.h:3534), TPU-native:
+does (dist.h:3534):
 
   1. grid -> uneven-grid redistribution (blocked-run plan + ragged
      collective),
@@ -14,7 +14,7 @@ does (dist.h:3534), TPU-native:
   4. the global-array fast path: GSPMD device_put when the destination
      is NamedSharding-expressible.
 
-Run on a TPU host:              python examples/redistribution_tour.py
+Run on the GPU(s):              python examples/redistribution_tour.py
 Run on N virtual CPU devices:   SBT_EXAMPLE_CPU=8 python examples/redistribution_tour.py
 """
 
@@ -32,8 +32,8 @@ import jax
 
 if os.environ.get("SBT_EXAMPLE_CPU"):
     jax.config.update("jax_platforms", "cpu")
-    # the f32 -> f64 conversion demo needs x64 (TPUs stay f32: the
-    # converting copy silently lands f32 there, which is also fine)
+    # the f32 -> f64 conversion demo needs x64 (without it the
+    # converting copy lands f32, which is also fine)
     jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp

@@ -5,7 +5,7 @@ with the packed even-odd preconditioned CG, checkpoint the solution in
 the reference-compatible S3T format (shard-per-block parallel writes),
 reload it into a DIFFERENT sharding, and verify the residual.
 
-Run on a TPU host:              python examples/wilson_workflow.py
+Run on the GPU(s):              python examples/wilson_workflow.py
 Run on N virtual CPU devices:   SBT_EXAMPLE_CPU=8 python examples/wilson_workflow.py
 """
 

@@ -1,7 +1,4 @@
-"""Multigrid WALL-CLOCK benchmark (round-3 VERDICT item 3).
-
-Round 2 proved iteration cuts but recorded no end-to-end seconds.  This
-experiment times full solves of D x = b on real hardware:
+"""Multigrid wall-clock benchmark: full solves of D x = b.
 
     CGNE       CG on D^H D               (the baseline every stack runs;
                                           2 D-applies per iteration)
@@ -20,9 +17,8 @@ Setup (prolongator + coarse LU) is timed separately: it is amortized
 over the many solves of an HMC trajectory / analysis campaign.
 
 Measured (CPU, 4^4, c128, mass sweep, K=4 ss=4): MG-FGCR reaches the
-CGNE answer with 2.2-2.8x fewer D-applies (mass -1.93..-1.98); the
-wall-clock ratio on TPU tracks the D-apply ratio once volumes clear the
-dispatch floor.
+CGNE answer with 2.2-2.8x fewer D-applies (mass -1.93..-1.98).  Seconds
+on the card: not measured.
 
 Usage:  python experiments/mg_wallclock.py [--cpu] [--lat 8 8 8 8]
             [--mass -0.58] [--ncols 8] [--tol 1e-5] [--smooth 4]
@@ -58,8 +54,9 @@ if args.cpu:
 import jax
 if args.cpu:
     jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/sbt_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from superbblas_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 
@@ -77,7 +74,7 @@ op = wilson_operator(lat, mass=args.mass, key=3, dtype=dt,
                      layout=args.layout)
 if args.layout == "soa":
     # fields stay in the canonical AoS order; _level_apply routes the
-    # matvec through the Pallas kernel with layout conversion at the
+    # matvec through the SoA stencil with layout conversion at the
     # boundary, so the WHOLE benchmark (CGNE + MG smoothing/residuals)
     # rides the hot path
     from superbblas_tpu.models.multigrid import _level_apply
@@ -100,7 +97,7 @@ print(f"lat={lat} mass={args.mass} ncols={args.ncols} tol={args.tol} "
       f"smooth={args.smooth} K={args.K} layout={args.layout} "
       f"platform={jax.devices()[0].platform}", flush=True)
 
-# ---- setup (amortized; staged timing per VERDICT r4 item 6) ----
+# ---- setup (amortized; timed per stage) ----
 t0 = time.perf_counter()
 P = build_prolongator_chiral(op, K=args.K, setup_iters=args.setup_iters)
 jax.block_until_ready(P.re)

@@ -1,10 +1,10 @@
-"""superbblas_tpu — a TPU-native distributed tensor-algebra engine.
+"""superbblas_tpu — a distributed tensor-algebra engine in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 superbblas C++ library (label-based tensor copy/permute/scale/add, einsum
 contractions, block-sparse lattice operators, distributed dense solvers,
-sharded storage), re-designed for TPU: GSPMD meshes instead of MPI,
-dot_general/Pallas instead of vendor BLAS, ppermute halo exchange instead of
+sharded storage), re-designed for XLA: GSPMD meshes instead of MPI,
+dot_general/Pallas instead of hand-dispatched BLAS, ppermute halo exchange instead of
 Ialltoallv.
 """
 

@@ -3,7 +3,7 @@
 The reference ships a template-instantiation build system (L8:
 superbblas_lib.h + src/tools/ctemplate + src/Makefile:42-100) that
 pre-compiles every (operation x dtype) instantiation into a library so
-consumers avoid recompilation.  The TPU-native equivalent of "template
+consumers avoid recompilation.  The JAX equivalent of "template
 pre-instantiation" is ahead-of-time XLA compilation: lower a jitted
 function at concrete shapes/dtypes, serialize the StableHLO artifact, and
 reload it later without tracing or compiling.

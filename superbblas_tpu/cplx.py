@@ -1,10 +1,8 @@
-"""Split-complex arrays: complex tensor algebra on real-only hardware.
+"""Split-complex arrays: complex tensor algebra on real arithmetic.
 
-The MXU has no complex datapath; XLA lowers complex dot_generals to four
-real ones (and some TPU runtimes, including the one this framework
-targets, do not lower them at all).  The reference library leans on
-vendor BLAS complex GEMMs (blas.h:662-812) — the TPU-native equivalent is
-an explicit split representation:
+XLA lowers complex dot_generals to four real ones.  The reference
+library leans on vendor BLAS complex GEMMs (blas.h:662-812); the
+equivalent here is an explicit split representation:
 
     CArray(re, im)   — a pytree of two same-shaped real arrays.
 
@@ -15,7 +13,7 @@ Karatsuba/Gauss decomposition
     (a+ib)(c+id): k1 = a(c+d), k2 = d(a+b), k3 = c(b-a)
                   re = k1 - k2, im = k1 + k3
 
-cutting MXU work 25% below XLA's own complex lowering.
+cutting the multiplies 25% below XLA's own complex lowering.
 """
 
 from __future__ import annotations
@@ -184,7 +182,7 @@ def cbilinear(f, a, b):
 def default_precision():
     """lax.Precision from SBT_MATMUL_PRECISION (see flags.py: "highest"
     by default so f32 contractions match the reference's true-fp32
-    semantics instead of the MXU's bf16 rounding)."""
+    semantics instead of TF32 rounding on the GPU)."""
     from . import flags
 
     return {

@@ -1,6 +1,6 @@
 """Runtime configuration via environment variables.
 
-TPU-native analog of the reference's ``runtime_features.h:15-158`` (env vars
+Analog of the reference's ``runtime_features.h:15-158`` (env vars
 ``SB_*`` read lazily once).  We keep the same spirit with an ``SBT_`` prefix:
 
   * ``SBT_LOG``   (int, default 0): >0 prints operation-level logging.
@@ -9,8 +9,6 @@ TPU-native analog of the reference's ``runtime_features.h:15-158`` (env vars
     distributed copy (see utils/testing.py).
   * ``SBT_TRACK_TIME`` (0/1): enable the tracker (utils/tracker.py).
   * ``SBT_TRACK_MEM``  (0/1): enable live-array accounting.
-  * ``SBT_PALLAS``     (0/1, default 1): allow Pallas kernels on TPU; 0
-    forces the pure-XLA fallbacks everywhere.
   * ``SBT_REDIST_METHOD`` ("auto"|"ragged"|"dense", default "auto"): the
     explicit-redistribution exchange flavor — the analog of the
     reference's ``SB_USE_ALLTOALL``/``SB_MPI_NONBLOCK`` collective
@@ -26,14 +24,14 @@ TPU-native analog of the reference's ``runtime_features.h:15-158`` (env vars
     the reference's ``SB_CACHEGB`` (cache.h:238-265).  Exceeding the
     budget evicts least-recently-used plans.
   * ``SBT_MATMUL_PRECISION`` ("highest"|"high"|"default", default
-    "highest"): MXU precision for f32 matmuls/einsums.  The TPU MXU
-    natively multiplies bf16; "default" rounds f32 inputs to bf16 (fast,
-    ~1e-2 relative error), "high"/"highest" use 3/6-pass bf16 splitting.
-    The default is "highest" because the reference library computes in
-    true fp32/fp64 and the test parity contract (BASELINE.md) is
-    "bitwise-tolerant fp32" — benchmarks that want raw MXU speed pass
-    bf16 operands explicitly, where this flag is a no-op.  The Pallas
-    stencil kernel is unaffected (VPU f32 FMAs are exact).
+    "highest"): precision of f32 matmuls/einsums.  On the GPU "default"
+    lets XLA run f32 products in TF32 on the tensor cores (about three
+    decimal digits); "highest" keeps true f32.  The default is "highest"
+    because the reference library computes in true fp32/fp64 and the
+    test parity contract (BASELINE.md) is "bitwise-tolerant fp32" —
+    benchmarks that want tensor-core speed pass bf16 operands
+    explicitly, where this flag is a no-op.  The SoA stencil is
+    unaffected (it does no matmul: every product is an f32 FMA).
 """
 
 from __future__ import annotations
@@ -67,10 +65,6 @@ def get_track_time() -> bool:
 
 def get_track_mem() -> bool:
     return bool(_env_int("SBT_TRACK_MEM", 0))
-
-
-def get_use_pallas() -> bool:
-    return bool(_env_int("SBT_PALLAS", 1))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,4 +1,4 @@
-"""Coarse-grid (multigrid) lattice operator: big dense blocks on the MXU.
+"""Coarse-grid (multigrid) lattice operator: big dense blocks.
 
 Multigrid solvers for lattice QCD coarsen the Dirac operator onto a small
 lattice with LARGE dense blocks (N_c = 2 x number of near-null vectors,
@@ -7,10 +7,10 @@ Kronecker factorization and no algebraic structure in the blocks — the
 workload the reference's generic block-CSR backends exist for
 (tests/bsr.cpp sweeps block sizes for exactly this reason).
 
-On TPU this regime is the *MXU* path of the stencil engine: with 32x32+
-blocks the stacked per-direction contraction in ``_apply_stencil`` is a
-batched GEMM with K = ndir * N_c — large enough to tile the systolic
-array, unlike the VPU-bound 3x3/4x4 Wilson blocks.
+This regime is the GEMM path of the stencil engine: with 32x32+ blocks
+the stacked per-direction contraction in ``_apply_stencil`` is a
+batched GEMM with K = ndir * N_c, unlike the bandwidth-bound 3x3/4x4
+Wilson blocks.
 
 The generated operator is gamma5-symmetric in the coarse sense
 (A_{-k}(s + o_k) = A_k(s)^H), making it Hermitian up to the mass shift —

@@ -49,11 +49,9 @@ class DomainWallSoAOperator:
     elementwise term.  In the engine's (chiral, DeGrand-Rossi) gamma
     basis g5 = diag(1,1,-1,-1), so P+- are 0/1 DIAGONAL and the s5 spin
     contraction collapses to per-channel weights — one fused elementwise
-    multiply-add with mass walls (5.1 TF/s full-matvec on v5e; the
-    generic-basis einsum form measured 1.9 and was removed: see the
-    chiral-fast-path commit for it).  Reference analog: the same
+    multiply-add with mass walls.  Reference analog: the same
     decomposition consumers drive through two create_bsr handles
-    (bsr.h:2287) — here one SoA kernel + a VPU term.
+    (bsr.h:2287) — here one SoA stencil + an elementwise term.
 
     ``apply_domain_wall`` takes x as a CArray [ncols, Ls, 12, X, Y, Z, T].
     """

@@ -242,7 +242,7 @@ def hopping_packed_soa(op: BSROperator, to_parity: int) -> BSROperator:
 
 def apply_hopping_packed_soa(hop: BSROperator, x_from: cplx.CArray,
                              to_parity: int,
-                             interpret=None) -> cplx.CArray:
+                             interpret=False) -> cplx.CArray:
     """y_to = H x_from between SoA packings through the Pallas kernel."""
     from ..bsr import apply_stencil_soa
 
@@ -252,11 +252,10 @@ def apply_hopping_packed_soa(hop: BSROperator, x_from: cplx.CArray,
 
 def eo_solve_packed_soa(op: BSROperator, b_soa: cplx.CArray, a: float,
                         n_iters: int = 50):
-    """Even-odd preconditioned solve on the SoA/Pallas hot path.
+    """Even-odd preconditioned solve on the SoA hot path.
 
     ``op``: SoA-layout operator; ``b_soa``: [n, KD*BD, X, *rest].
-    The Schur CG matvecs run as x-halved Pallas kernel applies (measured
-    2.44x faster per hopping than the full-lattice matvec on v5e).
+    The Schur CG matvecs run as x-halved SoA stencil applies.
     Returns (psi in SoA layout, Schur residual)."""
     if op.mode != "stencil_soa":
         raise ValueError("needs an SoA-layout operator")

@@ -3,7 +3,7 @@
 // The reference library's distribution layer spends host time computing
 // box-intersection communication plans over all rank pairs
 // (get_indices_to_send / get_indices_to_receive, dist.h:1789-1852, and
-// the hole subtraction dist.h:3745-3828 — all C++ there).  The TPU
+// the hole subtraction dist.h:3745-3828 — all C++ there).  The JAX
 // rebuild keeps the same split: device work is XLA/Pallas, but plan
 // construction is native.  This translation-unit implements toroidal
 // interval/box intersection and subtraction and the full (src, dst)

@@ -1,10 +1,10 @@
-"""Label-driven tensor contraction lowered to the MXU.
+"""Label-driven tensor contraction lowered to dot_general.
 
 Functional re-design of the reference's contraction engine
 (``include/superbblas/tensor.h:1271-1637`` in eromero-vlc/superbblas).  The
 reference classifies labels into T (batch) / A (contracted) / B / C groups,
 physically *reorders* both operands into a T-leading layout, and calls a
-strided batched GEMM.  On TPU none of that reordering is needed: we hand
+strided batched GEMM.  Here none of that reordering is needed: we hand
 ``lax.dot_general`` the label classification directly as
 ``dimension_numbers`` and let XLA fuse any layout changes into the matmul
 epilogue — the planner emits index mappings, not copies.
@@ -33,7 +33,7 @@ from .copy import _is_static, local_permute
 
 
 def _accum_type(dt):
-    """Accumulation dtype for the MXU: f32 for f32/bf16, else the input."""
+    """Accumulation dtype: f32 for f32/bf16, else the input."""
     if dt in (jnp.bfloat16.dtype, jnp.float16.dtype, jnp.float32.dtype):
         return jnp.float32
     return dt
@@ -63,7 +63,7 @@ def local_contraction(
     ``r`` may be None when beta == 0; then ``dimr``/``dtype`` give the output
     spec (defaulting to the deduced extents and the promoted input dtype).
 
-    Operands may be split-complex ``cplx.CArray``s (the TPU-native complex
+    Operands may be split-complex ``cplx.CArray``s (the split complex
     representation); the contraction then runs as 3 real dot_generals
     (Gauss trick) instead of the 4 XLA's own complex lowering uses.
     """

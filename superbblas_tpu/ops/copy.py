@@ -6,8 +6,7 @@ eromero-vlc/superbblas).  Instead of emitting gather/scatter index vectors
 and dispatching hand-rolled kernels, we express the copy as a composition of
 static slices, concatenations (toroidal wrap), transposes and in-place
 ``.at[]`` updates — all shapes are static, so XLA fuses the whole thing into
-one (or a few, when the box wraps) copy kernels and, on TPU, keeps it at
-HBM-bandwidth speed-of-light.
+one (or a few, when the box wraps) copy kernels.
 
 Semantics (matching the reference `local_copy`, tensor.h:1055-1129):
 
@@ -86,10 +85,7 @@ def _permute_to(x_box, o0: str, o1: str):
     order_in_o1 = [c for c in o1 if c in o0]
     perm = [o0.index(c) for c in order_in_o1]
     if perm != list(range(len(perm))):
-        from .permute_pallas import maybe_pallas_permute
-
-        out = maybe_pallas_permute(x_box, perm)   # TPU eager fast path
-        x_box = out if out is not None else jnp.transpose(x_box, perm)
+        x_box = jnp.transpose(x_box, perm)
     # Insert length-1 axes for o1 labels not in o0.
     if len(order_in_o1) != len(o1):
         shape = []

@@ -1,52 +1,52 @@
-"""Pallas TPU kernel for nearest-neighbor block stencils (Wilson-type).
+"""Nearest-neighbor block stencils (Wilson-type) in the SoA layout.
 
 This is the hot kernel of the framework: the BSR lattice-operator matvec
 (reference: the SpMM backends of bsr.h:281-1190 and the kron variant
-bsr.h:398-451).  The XLA lowering of the per-site small GEMMs (3x3 color
-blocks, 4x4 spin factors) pads every operand to MXU tiles and runs ~1000x
-below roofline; the TPU-native answer is a **structure-of-arrays layout**:
+bsr.h:398-451) in a **structure-of-arrays layout**:
 
-    x       [n, KD*BD, X, Y, Z, T]      (lattice minor: Z in sublanes,
-    blocks  [ndir, BI*BD, X, Y, Z, T]    T in lanes -> zero padding)
-    kron    [ndir, KI, KD]               (SMEM scalars)
+    x       [n, KD*BD, X, Y, Z, T]      (lattice minor: consecutive sites
+    blocks  [ndir, BI*BD, X, Y, Z, T]    are consecutive addresses)
+    kron    [ndir, KI, KD]               (spin factors, shared by all sites)
     y       [n, KI*BI, X, Y, Z, T]
 
 Every per-site contraction then becomes a broadcast multiply-add over
-full (Z, T) = (8k, 128) vector tiles — pure VPU work with unit stride.
+unit-stride site vectors.  Per direction the spin (kron) rotation runs
+first (ki*kd scalar combinations, folded at trace time by
+:func:`_factor_kron`) and then the color block multiply — the
+3-then-2 contraction order that mirrors the flop saving of the
+reference's kron path.  Complex arithmetic is split (re, im) throughout.
 
-Kernel structure: grid over (X, Y/Yc, n/nc); each program holds the
-center x block plus the x+-1 planes and y+-1 boundary rows (five
-BlockSpecs over the same array — the halo exchange of the reference's
-ext_power partitions, dist.h:3477-3509, resolved at tile granularity);
-Z/T neighbor shifts are in-register lane/sublane rotates since those axes
-are kept whole inside the block.  Per direction the kernel applies the
-spin (kron) rotation first (ki*kd scalar combinations) and then the color
-block multiply — the 3-then-2 contraction order that minimizes VPU work,
-mirroring the flop saving of the reference's kron path.
+Two implementations share one contract:
 
-Complex arithmetic is split (re, im) throughout: 4 real multiplies per
-complex multiply on the VPU.
+* :func:`stencil_matvec_soa` — a Pallas kernel on the Triton route, the
+  path on a GPU.  One program owns a block of consecutive sites and
+  loops over the right-hand sides; each neighbor is a gather at a
+  wrapped flat offset (X/Y planes by a scalar stride, Z/T by index
+  arithmetic), and all 8 directions are fused into one pass.  On an
+  H100 it beat the same per-site body left to XLA (``jnp.roll`` shifts)
+  3.7x at 32^3x64 x 12 rhs (PERF.md).
+* :func:`stencil_matvec_soa_reference` — an independent einsum
+  formulation: the contract the kernel is tested against, and the path
+  off the GPU.
 
-Mixed precision: operands may be stored bf16 (2x bigger lattices in
-HBM); loads are converted and all arithmetic accumulates in f32.
-Round-1 toolchains made the bf16 path ~25% SLOWER (conversion ops
-dominated); RE-MEASURED round 2 the conversions got cheap and the
-halved traffic wins: 10.4 TF/s bf16 vs 7.1 f32 (Wilson 8x8x16x128 x 8
-rhs on v5e) — bf16 storage is now the SPEED mode too.  Native bf16
-arithmetic remains blocked by Mosaic's 32-bit-only vector rotate.
+Mixed precision: operands may be stored bf16; loads are converted and
+all arithmetic accumulates in f32 (f64 for f64 operands).  The output
+dtype is the field dtype.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.custom_partitioning import custom_partitioning
+from jax.experimental.pallas import triton as pltriton
+from jax.sharding import NamedSharding, PartitionSpec
 
 from .. import cplx
 from ..labels import volume
@@ -109,8 +109,19 @@ def _axis_of(off) -> Tuple[int, int]:
     return nz[0]
 
 
+#: flat int32 offsets index every operand inside the kernel: per device,
+#: the links must stay below 2**31 elements (64^3 x 128 sites and more
+#: therefore need a sharded lattice), and the right-hand sides are split
+#: into calls that each stay below it
+_MAX_ELEMS = 2 ** 31 - 1
+
+
 def soa_eligible(offsets, dim_lat, bi, bd, ki, kd) -> bool:
-    """Whether the Pallas SoA kernel supports this stencil."""
+    """Whether a stencil can use the SoA layout: a 4D lattice, one-hot
+    +-1 offsets and at most 16x16 complex entries per block (the per-site
+    body is unrolled).  Any lattice extent works: neighbors are found by
+    index arithmetic, so no extent has to match a tile.  Sizes are checked
+    where the kernel runs, on the shapes each device holds."""
     if len(dim_lat) != 4:
         return False
     try:
@@ -118,12 +129,7 @@ def soa_eligible(offsets, dim_lat, bi, bd, ki, kd) -> bool:
             _axis_of(off)
     except ValueError:
         return False
-    X, Y, Z, T = dim_lat
-    if T % 128 != 0 or Z % 8 != 0:
-        return False
-    if volume((bi, bd, ki, kd)) > 16 * 16:
-        return False
-    return True
+    return volume((bi, bd, ki, kd)) <= 16 * 16
 
 
 def _smul(c, v):
@@ -152,14 +158,16 @@ def _cacc(acc, cre, cim, xr, xi):
     return (acc[0] + tre, acc[1] + tim)
 
 
-def _matvec_body(shifted, bload, store, zero_like, kron_re, kron_im,
+def _matvec_body(shifted, bload, store, zero_like, kron_at,
                  *, ndir, BI, BD, KI, KD, kfact):
-    """Shared per-direction stencil math for all kernel variants.
+    """The per-site stencil math, direction by direction.
 
-    ``shifted(d)`` -> (xs_re, xs_im) feature-indexed [:, f] operands;
-    ``bload(d, i, j)`` -> (br, bi) color-block planes; ``store(sp, i,
-    (re, im))`` writes an output row; ``zero_like()`` supplies a zero
-    plane for structurally-empty rows."""
+    ``shifted(d)`` -> ``xs(f)`` giving the (re, im) f32 operand of
+    feature f = spin * BD + color at the direction-d neighbor;
+    ``bload(d, i, j)`` -> (re, im) color-block entry; ``store(sp, i,
+    (re, im))`` writes an output row; ``zero_like()`` supplies a zero for
+    structurally-empty rows; ``kron_at(d, a, b)`` -> (re, im) spin-factor
+    entry, used only when ``kfact`` is None (traced spin factors)."""
 
     acc = [[None] * BI for _ in range(KI)]
 
@@ -177,14 +185,19 @@ def _matvec_body(shifted, bload, store, zero_like, kron_re, kron_im,
                                                         t[i][1] + tim)
         return t
 
+    def add_rows(sp, rows):
+        for i, t in enumerate(rows):
+            if t is not None:
+                acc[sp][i] = t if acc[sp][i] is None else (
+                    acc[sp][i][0] + t[0], acc[sp][i][1] + t[1])
+
     for d in range(ndir):
-        xs_re, xs_im = shifted(d)
+        xs = shifted(d)
 
         def spin_row(entries, j):
             z = None
             for (sidx, cre, cim) in entries:
-                f = sidx * BD + j
-                z = _cacc(z, cre, cim, xs_re[:, f], xs_im[:, f])
+                z = _cacc(z, cre, cim, *xs(sidx * BD + j))
             return z
 
         spec = None if kfact is None else kfact[d]
@@ -194,34 +207,24 @@ def _matvec_body(shifted, bload, store, zero_like, kron_re, kron_im,
                 for j in range(BD):
                     z = None
                     for sidx in range(KD):
-                        kr = kron_re[d, sp, sidx]
-                        ki_ = kron_im[d, sp, sidx]
-                        f = sidx * BD + j
-                        xr = xs_re[:, f]
-                        xi = xs_im[:, f]
+                        kr, ki_ = kron_at(d, sp, sidx)
+                        xr, xi = xs(sidx * BD + j)
                         tre = kr * xr - ki_ * xi
                         tim = kr * xi + ki_ * xr
                         z = (tre, tim) if z is None else (z[0] + tre,
                                                           z[1] + tim)
                     zrows.append(z)
-                for i, t in enumerate(color_rows(d, zrows)):
-                    if t is not None:
-                        acc[sp][i] = t if acc[sp][i] is None else (
-                            acc[sp][i][0] + t[0], acc[sp][i][1] + t[1])
+                add_rows(sp, color_rows(d, zrows))
         elif spec[0] == "direct":
             rows = spec[1]
             for sp in range(KI):
-                zrows = [spin_row(rows[sp], j) for j in range(BD)]
-                for i, t in enumerate(color_rows(d, zrows)):
-                    if t is not None:
-                        acc[sp][i] = t if acc[sp][i] is None else (
-                            acc[sp][i][0] + t[0], acc[sp][i][1] + t[1])
+                add_rows(sp, color_rows(
+                    d, [spin_row(rows[sp], j) for j in range(BD)]))
         else:
             prows, rrows = spec[1], spec[2]
-            tslots = []
-            for c in range(len(prows)):
-                zrows = [spin_row(prows[c], j) for j in range(BD)]
-                tslots.append(color_rows(d, zrows))
+            tslots = [color_rows(d, [spin_row(prows[c], j)
+                                     for j in range(BD)])
+                      for c in range(len(prows))]
             for sp in range(KI):
                 for (c, cre, cim) in rrows[sp]:
                     for i in range(BI):
@@ -240,129 +243,86 @@ def _matvec_body(shifted, bload, store, zero_like, kron_re, kron_im,
             store(sp, i, acc[sp][i])
 
 
-def _kernel(kron_re, kron_im,        # SMEM [ndir, KI, KD] (tracer path)
-            b_re, b_im,              # [ndir, BI*BD, 1, Yc, Z, T]
-            xc_re, xc_im,            # [nc, F, 1, Yc, Z, T]
-            xp_re, xp_im,
-            xm_re, xm_im,
-            yp_re, yp_im,            # [nc, F, 1, 1, Z, T]
-            ym_re, ym_im,
-            o_re, o_im,              # out [nc, KO, 1, Yc, Z, T]
-            *, offsets, BI, BD, KI, KD, Yc, Z, T, nc, kfact=None,
-            packed_parity=None):
+# ---------------------------------------------------------------------------
+# Pallas kernel (Triton route)
+# ---------------------------------------------------------------------------
 
-    def full(ref):
-        # loads cast to f32: operands may be stored bf16 (mixed-precision
-        # inner solves halve HBM traffic); accumulation is always f32
-        return ref[:, :, 0].astype(jnp.float32)   # [nc, F, Yc, Z, T]
+#: sites per program (a power of two) and warps per program: one site
+#: per thread keeps the ~100 live f32 values of the unrolled Wilson body
+#: in registers
+_BLOCK = 128
+_NUM_WARPS = 4
 
-    out_dt = o_re.dtype
-    xc = (full(xc_re), full(xc_im))
 
-    def _img_x_odd():
-        """Parity of the image site's x coordinate, per (row, z, t) —
-        for packed-checkerboard operands the X-neighbor is either the
-        same packed slot or the adjacent one depending on it."""
-        y0 = pl.program_id(1) * Yc
-        ys = y0 + jax.lax.broadcasted_iota(jnp.int32, (Yc, Z, T), 0)
-        zs = jax.lax.broadcasted_iota(jnp.int32, (Yc, Z, T), 1)
-        ts = jax.lax.broadcasted_iota(jnp.int32, (Yc, Z, T), 2)
-        return ((packed_parity + ys + zs + ts) % 2) == 1
+def _kernel(kr_ref, ki_ref, b_re, b_im, x_re, x_im, o_re, o_im,
+            *, offsets, dims, BI, BD, KI, KD, n, block, kfact,
+            packed_parity, acc):
+    X, Y, Z, T = dims
+    V = X * Y * Z * T
+    F, KO, FB = KD * BD, KI * BI, BI * BD
+    strides = (Y * Z * T, Z * T, T, 1)
+    s = pl.program_id(0) * block + jnp.arange(block, dtype=jnp.int32)
+    coords = (s // strides[0], (s // T // Z) % Y, (s // T) % Z, s % T)
 
-    def shifted(d):
-        """The x block shifted for direction d: [nc, F, Yc, Z, T] pair."""
+    def neighbor(d):
         ax, sgn = _axis_of(offsets[d])
         if ax == -1:
-            return xc
-        if ax == 0:
-            src = (full(xp_re), full(xp_im)) if sgn > 0 else \
-                  (full(xm_re), full(xm_im))
-            if packed_parity is None:
-                return src
-            m = _img_x_odd()
-            if sgn > 0:   # xh' = xh + [image x odd]
-                return (jnp.where(m, src[0], xc[0]),
-                        jnp.where(m, src[1], xc[1]))
-            # xh' = xh - [image x even]
-            return (jnp.where(m, xc[0], src[0]),
-                    jnp.where(m, xc[1], src[1]))
-        if ax == 1:
-            if Yc == 1:
-                src = (yp_re, yp_im) if sgn > 0 else (ym_re, ym_im)
-                return (src[0][:, :, 0].astype(jnp.float32),
-                        src[1][:, :, 0].astype(jnp.float32))
-            if sgn > 0:
-                # rows 1..Yc-1 of center + the y+ boundary row
-                def cat(c, b):
-                    return jnp.concatenate(
-                        [c[:, :, 1:], b[:, :, 0].astype(jnp.float32)], axis=2)
-                return (cat(xc[0], yp_re), cat(xc[1], yp_im))
-            def cat(c, b):
-                return jnp.concatenate(
-                    [b[:, :, 0].astype(jnp.float32), c[:, :, :Yc - 1]], axis=2)
-            return (cat(xc[0], ym_re), cat(xc[1], ym_im))
-        if ax == 2:
-            sh = (Z - 1) if sgn > 0 else 1
-            return (pltpu.roll(xc[0], sh, 3), pltpu.roll(xc[1], sh, 3))
-        sh = (T - 1) if sgn > 0 else 1
-        return (pltpu.roll(xc[0], sh, 4), pltpu.roll(xc[1], sh, 4))
+            return s
+        c, L = coords[ax], dims[ax]
+        if ax == 0 and packed_parity is not None:
+            # packed checkerboard: the image site's x parity decides
+            # whether the X neighbor is the same packed slot or the next
+            odd = (packed_parity + coords[1] + coords[2] + coords[3]) % 2
+            step = odd if sgn > 0 else odd - 1
+        else:
+            step = sgn
+        return s + ((c + step + L) % L - c) * strides[ax]
 
-    ndir = len(offsets)
-    _matvec_body(
-        shifted,
-        lambda d, i, j: (b_re[d, i * BD + j, 0].astype(jnp.float32),
-                         b_im[d, i * BD + j, 0].astype(jnp.float32)),
-        lambda sp, i, v: (o_re.__setitem__((slice(None), sp * BI + i, 0),
-                                           v[0].astype(out_dt)),
-                          o_im.__setitem__((slice(None), sp * BI + i, 0),
-                                           v[1].astype(out_dt))),
-        lambda: jnp.zeros_like(xc[0][:, 0]),
-        kron_re, kron_im,
-        ndir=ndir, BI=BI, BD=BD, KI=KI, KD=KD, kfact=kfact,
-    )
+    nbr = [neighbor(d) for d in range(len(offsets))]
+
+    def kron_at(d, a, b):
+        k = (d * KI + a) * KD + b
+        return kr_ref[k], ki_ref[k]
+
+    @pl.loop(0, n)
+    def _(col):
+        def shifted(d):
+            base = col * F * V + nbr[d]
+
+            @functools.cache      # each feature is loaded at most once
+            def xs(f):
+                return (pltriton.load(x_re.at[base + f * V]).astype(acc),
+                        pltriton.load(x_im.at[base + f * V]).astype(acc))
+            return xs
+
+        @functools.cache
+        def bload(d, i, j):
+            off = (d * FB + i * BD + j) * V + s
+            return (pltriton.load(b_re.at[off]).astype(acc),
+                    pltriton.load(b_im.at[off]).astype(acc))
+
+        def store(sp, i, v):
+            off = (col * KO + sp * BI + i) * V + s
+            pltriton.store(o_re.at[off], v[0].astype(o_re.dtype))
+            pltriton.store(o_im.at[off], v[1].astype(o_im.dtype))
+
+        _matvec_body(shifted, bload, store,
+                     lambda: jnp.zeros((block,), acc), kron_at,
+                     ndir=len(offsets), BI=BI, BD=BD, KI=KI, KD=KD,
+                     kfact=kfact)
 
 
-#: measured chunk preference, best first (round-4 confirm sweep on v5e,
-#: experiments/stencil_retune.py + stencil_confirm_r4.py, Wilson
-#: 8x8x16x128 x 8 rhs, long-chain two-point timing x2 reps):
-#:   f32 : (8,2) 7.46-7.85 TF/s > (4,4) 7.42-7.54 > (8,1) 7.32
-#:         > (1,8) 7.16-7.23 (the old Yc-max pick) > (4,1) 6.45-6.68
-#:   bf16: (8,2) 11.30-11.54 > (4,4) 10.92-11.42 > (2,8) 10.71-10.83
-#:         > old auto 10.36-10.53
-#: (the round-2 toolchain preferred Yc-max — Mosaic scheduling moved;
-#: keep re-measuring per round.)
-_PREF_CHUNKS = ((8, 2), (4, 4), (2, 8), (8, 1))
-
-
-def _pick_chunks(n, Y, F, KO, BI, BD, Z, T, ndir, vmem_budget=39 * 2 ** 20,
-                 itemsize=4):
-    """Choose (nc, Yc) fitting the VMEM budget (with double buffering).
-
-    Tries the measured preference table (_PREF_CHUNKS) first, then falls
-    back to maximizing Yc then nc.  The 39 MiB budget is the largest
-    worksize the Mosaic toolchain compiled reliably (48+ MiB configs
-    crash the compiler); the pallas_call sets vmem_limit_bytes=64 MiB
-    to accommodate it."""
-    def bytes_for(nc, Yc):
-        site = Z * T * itemsize
-        x = (3 * Yc + 2) * F * nc * site * 2          # 5 specs, re+im
-        blk = ndir * BI * BD * Yc * site * 2
-        y = KO * nc * Yc * site * 2
-        return (x + blk) * 2 + y * 2                   # double buffering
-
-    # preference rows get a higher cap: the bf16 (8,2) bench config
-    # models at ~55 MiB and compiled+ran on the round-4 toolchain (the
-    # 39 MiB ceiling predates it); the generic fallback stays
-    # conservative for unmeasured shapes
-    pref_budget = max(vmem_budget, 56 * 2 ** 20)
-    for nc, Yc in _PREF_CHUNKS:
-        if n % nc == 0 and Y % Yc == 0 and bytes_for(nc, Yc) <= pref_budget:
-            return nc, Yc
-    for Yc in [y for y in range(Y, 0, -1) if Y % y == 0]:
-        for nc in [c for c in (8, 4, 2, 1) if n % c == 0]:
-            if bytes_for(nc, Yc) <= vmem_budget:
-                return nc, Yc
-    return 1, 1
+class _Static(NamedTuple):
+    """What the kernel body is specialised on (hashable)."""
+    offsets: Tuple[Tuple[int, ...], ...]
+    bi: int
+    bd: int
+    ki: int
+    kd: int
+    kfact: Optional[tuple]
+    packed_parity: Optional[int]
+    acc: np.dtype
+    interpret: bool
 
 
 def stencil_matvec_soa(
@@ -373,102 +333,195 @@ def stencil_matvec_soa(
     bi: int, bd: int,
     interpret: bool = False,
     packed_parity: Optional[int] = None,
-    chunks: Optional[Tuple[int, int]] = None,
 ) -> cplx.CArray:
-    """y[n, KI*BI, X, Y, Z, T] = stencil matvec in SoA layout.
+    """y[n, KI*BI, X, Y, Z, T] = stencil matvec in SoA layout, as one
+    Pallas kernel on the Triton route (``interpret=True`` runs it in the
+    Pallas interpreter, which is how the CPU tests reach it).
 
-    ``chunks=(nc, Yc)`` overrides the VMEM-budget auto-pick (used by the
-    per-toolchain retune sweep, experiments/stencil_retune.py — Mosaic
-    scheduling shifts between releases, so the best config is re-measured
-    each round per VERDICT r2 item 10)."""
-    ndir, FB = blocks.shape[0], blocks.shape[1]
-    X, Y, Z, T = blocks.shape[2:]
-    n = x.shape[0]
+    Operands sharded over several devices are partitioned by the kernel's
+    own rule (:func:`_partition`): the right-hand sides split freely, a
+    lattice sharded over X and/or Y gets a halo exchange, and any other
+    sharding is an error, never a silent all-gather."""
+    ndir = blocks.shape[0]
+    # sums run in f32 for f32/bf16 operands, in f64 for f64 ones
+    acc = jnp.promote_types(jnp.promote_types(x.dtype, blocks.dtype),
+                            jnp.float32)
     if kron is None:
-        kron = cplx.CArray(jnp.ones((ndir, 1, 1), jnp.float32),
-                           jnp.zeros((ndir, 1, 1), jnp.float32))
-    # kron scalars live in SMEM and multiply f32-converted operands:
-    # always f32 regardless of the (possibly bf16) storage dtype
-    kron = cplx.cmap(lambda a: a.astype(jnp.float32), kron)
-    KI, KD = kron.shape[1], kron.shape[2]
-    F = KD * bd
-    KO = KI * bi
-    assert FB == bi * bd and x.shape[1] == F
-
-    # bf16 operands are converted to f32 in VMEM: budget raw + converted
-    if chunks is not None:
-        nc, Yc = chunks
-        if n % nc or Y % Yc:
-            raise ValueError(f"chunks {chunks} must divide (n={n}, Y={Y})")
-    else:
-        nc, Yc = _pick_chunks(n, Y, F, KO, bi, bd, Z, T, ndir,
-                              itemsize=(6 if x.dtype.itemsize == 2 else 4))
-    grid = (X, Y // Yc, n // nc)
-
-    xspec = pl.BlockSpec(
-        (nc, F, 1, Yc, Z, T),
-        lambda ix, iy, inn: (inn, 0, ix, iy, 0, 0),
-    )
-    xp = pl.BlockSpec(
-        (nc, F, 1, Yc, Z, T),
-        lambda ix, iy, inn, X=X: (inn, 0, (ix + 1) % X, iy, 0, 0),
-    )
-    xm = pl.BlockSpec(
-        (nc, F, 1, Yc, Z, T),
-        lambda ix, iy, inn, X=X: (inn, 0, (ix - 1) % X, iy, 0, 0),
-    )
-    yp = pl.BlockSpec(
-        (nc, F, 1, 1, Z, T),
-        lambda ix, iy, inn, Y=Y, Yc=Yc: (inn, 0, ix, (iy * Yc + Yc) % Y, 0, 0),
-    )
-    ym = pl.BlockSpec(
-        (nc, F, 1, 1, Z, T),
-        lambda ix, iy, inn, Y=Y, Yc=Yc: (inn, 0, ix, (iy * Yc - 1) % Y, 0, 0),
-    )
-    bspec = pl.BlockSpec(
-        (ndir, FB, 1, Yc, Z, T),
-        lambda ix, iy, inn: (0, 0, ix, iy, 0, 0),
-    )
-    kspec = pl.BlockSpec(memory_space=pltpu.SMEM)
-    ospec = pl.BlockSpec(
-        (nc, KO, 1, Yc, Z, T),
-        lambda ix, iy, inn: (inn, 0, ix, iy, 0, 0),
-    )
-
-    kern = functools.partial(
-        _kernel, offsets=tuple(tuple(o) for o in offsets),
-        BI=bi, BD=bd, KI=KI, KD=KD, Yc=Yc, Z=Z, T=T, nc=nc,
-        kfact=_factor_kron(kron.re, kron.im),
-        packed_parity=packed_parity,
-    )
-    flops = 4 * 2 * n * X * Y * Z * T * ndir * (KI * KD * bd + bi * bd)
-    o_re, o_im = pl.pallas_call(
-        kern,
-        grid=grid,
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=64 * 2 ** 20),
-        in_specs=[kspec, kspec, bspec, bspec,
-                  xspec, xspec, xp, xp, xm, xm, yp, yp, ym, ym],
-        out_specs=(ospec, ospec),
-        out_shape=(
-            jax.ShapeDtypeStruct((n, KO, X, Y, Z, T), x.dtype),
-            jax.ShapeDtypeStruct((n, KO, X, Y, Z, T), x.dtype),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=flops,
-            bytes_accessed=(blocks.size + 2 * x.size) * 2 * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(kron.re, kron.im, blocks.re, blocks.im,
-      x.re, x.im, x.re, x.im, x.re, x.im, x.re, x.im, x.re, x.im)
+        kron = cplx.CArray(jnp.ones((ndir, 1, 1)), jnp.zeros((ndir, 1, 1)))
+    kron = cplx.cmap(lambda a: a.astype(acc), kron)
+    st = _Static(
+        offsets=tuple(tuple(int(v) for v in o) for o in offsets),
+        bi=bi, bd=bd, ki=kron.shape[1], kd=kron.shape[2],
+        kfact=_factor_kron(kron.re, kron.im), packed_parity=packed_parity,
+        acc=np.dtype(acc), interpret=bool(interpret))
+    assert blocks.shape[1] == bi * bd and x.shape[1] == st.kd * bd
+    o_re, o_im = _partitioned(st)(kron.re, kron.im, blocks.re, blocks.im,
+                                  x.re, x.im)
     return cplx.CArray(o_re, o_im)
 
 
+def _pallas(st, packed_parity, kr, ki, br, bim, xr, xi):
+    """One kernel launch on device-local operands."""
+    ndir = br.shape[0]
+    dims = tuple(br.shape[2:])
+    V = volume(dims)
+    n = xr.shape[0]
+    KO = st.ki * st.bi
+    # the largest power of two up to _BLOCK that divides the volume:
+    # programs tile the sites exactly, so no lane needs a mask
+    block = math.gcd(V, _BLOCK)
+    kern = functools.partial(
+        _kernel, offsets=st.offsets, dims=dims, BI=st.bi, BD=st.bd,
+        KI=st.ki, KD=st.kd, n=n, block=block, kfact=st.kfact,
+        packed_parity=packed_parity, acc=st.acc)
+    flat = lambda a: a.reshape(-1)
+    out = jax.ShapeDtypeStruct((n * KO * V,), xr.dtype)
+    o_re, o_im = pl.pallas_call(
+        kern,
+        grid=(V // block,),
+        out_shape=(out, out),
+        compiler_params=pltriton.CompilerParams(num_warps=_NUM_WARPS,
+                                                num_stages=1),
+        cost_estimate=pl.CostEstimate(
+            flops=4 * 2 * n * V * ndir * (st.ki * st.kd * st.bd
+                                          + st.bi * st.bd),
+            bytes_accessed=(br.nbytes + xr.nbytes) * 2
+            + 2 * n * KO * V * xr.dtype.itemsize,
+            transcendentals=0),
+        interpret=st.interpret,
+        name="sbt_stencil_soa",
+    )(flat(kr), flat(ki), flat(br), flat(bim), flat(xr), flat(xi))
+    shape = (n, KO) + dims
+    return o_re.reshape(shape), o_im.reshape(shape)
+
+
+def _local_apply(st, packed_parity, kr, ki, br, bim, xr, xi):
+    """The kernel on one device's operands, the right-hand sides split so
+    that every flat index of a launch fits int32."""
+    V = volume(br.shape[2:])
+    if br.shape[0] * br.shape[1] * V > _MAX_ELEMS:
+        raise ValueError(
+            f"{br.shape[2:]} lattice sites on one device exceed the stencil "
+            f"kernel's int32 indexing of the links; shard the lattice over "
+            f"more devices")
+    per = _MAX_ELEMS // (max(xr.shape[1], st.ki * st.bi) * V)
+    n = xr.shape[0]
+    outs = [_pallas(st, packed_parity, kr, ki, br, bim,
+                    xr[c:c + per], xi[c:c + per]) for c in range(0, n, per)]
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(jnp.concatenate(p, axis=0) for p in zip(*outs))
+
+
+# ---------------------------------------------------------------------------
+# GSPMD partitioning: without a rule, XLA would gather every sharded
+# operand whole onto each device before the kernel (it cannot see inside a
+# pallas_call)
+# ---------------------------------------------------------------------------
+
+#: operands (kron re/im, blocks re/im, x re/im) -> outputs (y re/im)
+_RULE = ("p q r, p q r, d f x y z t, d f x y z t, n g x y z t, n g x y z t"
+         " -> n h x y z t, n h x y z t")
+
+
+def _spec_of(sharding, ndim):
+    spec = tuple(sharding.spec) + (None,) * ndim
+    return tuple(s[0] if isinstance(s, tuple) and len(s) == 1 else s
+                 for s in spec[:ndim])
+
+
+def _plan(st, mesh, arg_shapes):
+    """(lattice spec, rhs spec, {array axis: (mesh axis, halo width)})
+    for sharded operands, or None when every operand is replicated;
+    raises for a sharding the kernel cannot run on without a gather."""
+    shardings = [a.sharding for a in arg_shapes]
+    if all(s.is_fully_replicated for s in shardings):
+        return None
+    b_spec = _spec_of(shardings[2], 6)
+    x_spec = _spec_of(shardings[4], 6)
+    lat = x_spec[2:]
+    halos = {}
+    ok = (all(isinstance(s, NamedSharding) for s in shardings[2:])
+          and b_spec[:2] == (None, None) and x_spec[1] is None
+          and b_spec[2:] in (lat, (None,) * 4)
+          and shardings[3] == shardings[2] and shardings[5] == shardings[4]
+          and lat[2:] == (None, None))
+    for k in (0, 1):
+        nm = lat[k]
+        if not ok or nm is None:
+            continue
+        if not isinstance(nm, str):     # one lattice axis over many mesh axes
+            ok = False
+            break
+        local = arg_shapes[4].shape[2 + k] // mesh.shape[nm]
+        w = max(abs(o[k]) for o in st.offsets)
+        # the packed parity of an extended Y block is static only for
+        # even local Y extents
+        ok = w <= local and not (k == 1 and st.packed_parity is not None
+                                 and local % 2)
+        if mesh.shape[nm] > 1:
+            halos[2 + k] = (nm, w)
+    if not ok:
+        raise ValueError(
+            f"the SoA stencil kernel partitions over the right-hand sides "
+            f"and over lattice X/Y only; got links sharded as {b_spec} and "
+            f"the field as {x_spec}.  Reshard the operands, or call "
+            f"parallel.apply_stencil_soa_sharded.")
+    return lat, x_spec[0], halos
+
+
+def _partition(st, mesh, arg_shapes, result_shape):
+    plan = _plan(st, mesh, arg_shapes)
+    if plan is None:
+        return (mesh, functools.partial(_local_apply, st, st.packed_parity),
+                tuple(r.sharding for r in result_shape),
+                tuple(a.sharding for a in arg_shapes))
+    lat, rhs, halos = plan
+    sh = lambda *spec: NamedSharding(mesh, PartitionSpec(*spec))
+    x_sh = sh(rhs, None, *lat)
+    args = (sh(), sh(), sh(None, None, *lat), sh(None, None, *lat),
+            x_sh, x_sh)
+
+    def lower(kr, ki, br, bim, xr, xi):
+        from ..parallel.halo import crop_halos, extend_local
+
+        names = {ax: nm for ax, (nm, _) in halos.items()}
+        widths = {ax: w for ax, (_, w) in halos.items()}
+        pp = st.packed_parity
+        if names:
+            br, bim, xr, xi = (extend_local(a, names, widths, mesh)
+                               for a in (br, bim, xr, xi))
+            if pp is not None and 3 in widths:
+                pp = (pp + widths[3]) % 2   # local Y starts w sites early
+        out = _local_apply(st, pp, kr, ki, br, bim, xr, xi)
+        return tuple(crop_halos(o, widths) for o in out)
+
+    return mesh, lower, (x_sh, x_sh), args
+
+
+@functools.lru_cache(maxsize=None)
+def _partitioned(st: _Static):
+    """The kernel as a jitted custom-partitioned call: on one device it is
+    the plain launch; across devices GSPMD calls :func:`_partition`."""
+    @custom_partitioning
+    def apply(kr, ki, br, bim, xr, xi):
+        return _local_apply(st, st.packed_parity, kr, ki, br, bim, xr, xi)
+
+    apply.def_partition(
+        partition=functools.partial(_partition, st), sharding_rule=_RULE)
+    return jax.jit(apply)
+
+
+# ---------------------------------------------------------------------------
+# Reference
+# ---------------------------------------------------------------------------
+
 def stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd,
                                  packed_parity=None):
-    """Pure-XLA reference with the same SoA signature (used for tests and
-    as the CPU fallback).  ``packed_parity`` selects the checkerboard-
-    packed X-shift semantics (see models/eo_packed.py)."""
+    """Independent einsum formulation with the same SoA signature: the
+    contract every implementation is tested against.  ``packed_parity``
+    selects the checkerboard-packed X-shift semantics (see
+    models/eo_packed.py)."""
     ndir = blocks.shape[0]
     if kron is None:
         kron = cplx.CArray(jnp.ones((ndir, 1, 1), blocks.dtype),
@@ -477,10 +530,8 @@ def stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd,
     n = x.shape[0]
     lat = x.shape[2:]
     if packed_parity is not None:
-        import numpy as _np
-
         rest = lat[1:]
-        coords = _np.meshgrid(*[_np.arange(d) for d in rest], indexing="ij")
+        coords = np.meshgrid(*[np.arange(d) for d in rest], indexing="ij")
         m = ((packed_parity + sum(coords)) % 2 == 1)
         img_x_odd = jnp.asarray(m.reshape((1, 1, 1) + tuple(rest)))
 
@@ -502,10 +553,10 @@ def stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd,
 
     y = None
     xs4 = cplx.cmap(lambda a: a.reshape((n, KD, bd) + lat), x)
+    prec = cplx.default_precision()
     for d in range(ndir):
         xd = roll(xs4, offsets[d])
         kr = cplx.CArray(kron.re[d], kron.im[d])
-        prec = cplx.default_precision()
         z = cplx.cbilinear(
             lambda K, V: jnp.einsum("ab,nbj...->naj...", K, V,
                                     precision=prec), kr, xd)
@@ -515,8 +566,7 @@ def stencil_matvec_soa_reference(blocks, kron, x, offsets, bi, bd,
                                     precision=prec), blk, z)
         y = t if y is None else cplx.add(y, t)
     # honor the kernel's output contract (out dtype = field dtype): the
-    # f32 kron factor otherwise promotes a bf16 field to f32 here but
-    # not on the Pallas path — scan carries (bench chains) would differ
+    # f32 kron factor otherwise promotes a bf16 field to f32 here
     out_dt = x.re.dtype
     return cplx.cmap(
         lambda a: a.reshape((n, KI * bi) + lat).astype(out_dt), y)
@@ -539,327 +589,3 @@ def soa_to_aos(y: cplx.CArray, nlat: int, ki: int, bi: int) -> cplx.CArray:
         perm = tuple(range(3, 3 + nlat)) + (1, 2, 0)
         return jnp.transpose(a, perm)
     return cplx.cmap(t, y)
-
-
-# ---------------------------------------------------------------------------
-# v2 kernel: full X inside the block (X shifts are in-VMEM concats)
-# ---------------------------------------------------------------------------
-#
-# The v1 kernel grids over X and fetches the x-1/x/x+1 planes as three
-# BlockSpecs, so x is read ~3x from HBM per matvec.  Keeping the whole X
-# axis inside the block turns the X neighbor fetch into a VMEM
-# concatenation: HBM x-traffic drops to (1 + 2/Yc)x (only the y-boundary
-# rows repeat).
-#
-# MEASURED (v5e, Wilson 8x8x16x128, 8 rhs): v2 peaks at 3.5 TF/s
-# (nc=4, Yc=1) vs v1's 4.6 TF/s in the same harness — the theoretical
-# 1.4x traffic saving is eaten by worse Mosaic scheduling of the
-# full-X blocks (coarser grid -> weaker DMA/compute pipelining; several
-# (nc, Yc) points crash the compiler outright).  v1 therefore remains
-# the production path unconditionally; this variant is kept as a
-# correct, tested alternative for future re-evaluation on newer
-# toolchains.
-#
-# RE-TESTED round 2 (newer toolchain, same harness): v1 7.33, v2 6.35,
-# v3 4.86 TF/s — v2 nearly doubled (Mosaic scheduling improved) but v1
-# still wins; keep re-testing per toolchain update.  A forced (nc, Yc)
-# sweep found only nc=2/Yc=1 compiling (5.97 TF/s; every other point
-# remote_compile HTTP 500) — the auto-pick remains the only viable
-# config.
-
-
-def _kernel_xin(kron_re, kron_im,      # SMEM [ndir, KI, KD]
-                b_re, b_im,            # [ndir, BI*BD, X, Yc, Z, T]
-                xc_re, xc_im,          # [nc, F, X, Yc, Z, T]
-                yp_re, yp_im,          # [nc, F, X, 1, Z, T]
-                ym_re, ym_im,
-                o_re, o_im,            # out [nc, KO, X, Yc, Z, T]
-                *, offsets, BI, BD, KI, KD, X, Yc, Z, T, nc, kfact=None):
-
-    out_dt = o_re.dtype
-    xc = (xc_re[...].astype(jnp.float32), xc_im[...].astype(jnp.float32))
-
-    def shifted(d):
-        ax, sgn = _axis_of(offsets[d])
-        if ax == -1:
-            return xc
-        if ax == 0:
-            # toroidal within the full in-block X axis
-            if sgn > 0:
-                cat = lambda c: jnp.concatenate([c[:, :, 1:], c[:, :, :1]],
-                                                axis=2)
-            else:
-                cat = lambda c: jnp.concatenate([c[:, :, -1:], c[:, :, :-1]],
-                                                axis=2)
-            return (cat(xc[0]), cat(xc[1]))
-        if ax == 1:
-            if Yc == 1:
-                src = (yp_re, yp_im) if sgn > 0 else (ym_re, ym_im)
-                return (src[0][...].astype(jnp.float32),
-                        src[1][...].astype(jnp.float32))
-            if sgn > 0:
-                def cat(c, b):
-                    return jnp.concatenate(
-                        [c[:, :, :, 1:], b[...].astype(jnp.float32)], axis=3)
-                return (cat(xc[0], yp_re), cat(xc[1], yp_im))
-            def cat(c, b):
-                return jnp.concatenate(
-                    [b[...].astype(jnp.float32), c[:, :, :, :Yc - 1]], axis=3)
-            return (cat(xc[0], ym_re), cat(xc[1], ym_im))
-        if ax == 2:
-            sh = (Z - 1) if sgn > 0 else 1
-            return (pltpu.roll(xc[0], sh, 4), pltpu.roll(xc[1], sh, 4))
-        sh = (T - 1) if sgn > 0 else 1
-        return (pltpu.roll(xc[0], sh, 5), pltpu.roll(xc[1], sh, 5))
-
-    _matvec_body(
-        shifted,
-        lambda d, i, j: (b_re[d, i * BD + j].astype(jnp.float32),
-                         b_im[d, i * BD + j].astype(jnp.float32)),
-        lambda sp, i, v: (o_re.__setitem__((slice(None), sp * BI + i),
-                                           v[0].astype(out_dt)),
-                          o_im.__setitem__((slice(None), sp * BI + i),
-                                           v[1].astype(out_dt))),
-        lambda: jnp.zeros_like(xc[0][:, 0]),
-        kron_re, kron_im,
-        ndir=len(offsets), BI=BI, BD=BD, KI=KI, KD=KD, kfact=kfact,
-    )
-
-
-def _pick_chunks_xin(n, X, Y, F, KO, BI, BD, Z, T, ndir,
-                     vmem_budget=64 * 2 ** 20):
-    """(nc, Yc) for the X-inside kernel, or None if nothing fits."""
-    def bytes_for(nc, Yc):
-        site = X * Z * T * 4
-        x = (Yc + 2) * F * nc * site * 2
-        blk = ndir * BI * BD * Yc * site * 2
-        y = KO * nc * Yc * site * 2
-        return (x + blk) * 2 + y * 2
-
-    best = None
-    for Yc in [y for y in (4, 2, 1) if Y % y == 0]:
-        for nc in [c for c in (8, 4, 2, 1) if n % c == 0]:
-            if bytes_for(nc, Yc) <= vmem_budget:
-                # prefer larger Yc (amortizes y-rows), then larger nc
-                if best is None or (Yc, nc) > best:
-                    best = (Yc, nc)
-    return None if best is None else (best[1], best[0])
-
-
-def stencil_matvec_soa_xin(
-    blocks: cplx.CArray,
-    kron: Optional[cplx.CArray],
-    x: cplx.CArray,
-    offsets: Sequence[Tuple[int, ...]],
-    bi: int, bd: int,
-    interpret: bool = False,
-) -> cplx.CArray:
-    """X-inside variant of :func:`stencil_matvec_soa` (same contract)."""
-    ndir, FB = blocks.shape[0], blocks.shape[1]
-    X, Y, Z, T = blocks.shape[2:]
-    n = x.shape[0]
-    if kron is None:
-        kron = cplx.CArray(jnp.ones((ndir, 1, 1), blocks.dtype),
-                           jnp.zeros((ndir, 1, 1), blocks.dtype))
-    KI, KD = kron.shape[1], kron.shape[2]
-    F = KD * bd
-    KO = KI * bi
-    assert FB == bi * bd and x.shape[1] == F
-
-    picked = _pick_chunks_xin(n, X, Y, F, KO, bi, bd, Z, T, ndir)
-    if picked is None:
-        raise ValueError("no (nc, Yc) fits VMEM for the X-inside kernel")
-    nc, Yc = picked
-    grid = (Y // Yc, n // nc)
-
-    xspec = pl.BlockSpec((nc, F, X, Yc, Z, T),
-                         lambda iy, inn: (inn, 0, 0, iy, 0, 0))
-    yp = pl.BlockSpec((nc, F, X, 1, Z, T),
-                      lambda iy, inn, Y=Y, Yc=Yc: (inn, 0, 0,
-                                                   (iy * Yc + Yc) % Y, 0, 0))
-    ym = pl.BlockSpec((nc, F, X, 1, Z, T),
-                      lambda iy, inn, Y=Y, Yc=Yc: (inn, 0, 0,
-                                                   (iy * Yc - 1) % Y, 0, 0))
-    bspec = pl.BlockSpec((ndir, FB, X, Yc, Z, T),
-                         lambda iy, inn: (0, 0, 0, iy, 0, 0))
-    kspec = pl.BlockSpec(memory_space=pltpu.SMEM)
-    ospec = pl.BlockSpec((nc, KO, X, Yc, Z, T),
-                         lambda iy, inn: (inn, 0, 0, iy, 0, 0))
-
-    kern = functools.partial(
-        _kernel_xin, offsets=tuple(tuple(o) for o in offsets),
-        BI=bi, BD=bd, KI=KI, KD=KD, X=X, Yc=Yc, Z=Z, T=T, nc=nc,
-        kfact=_factor_kron(kron.re, kron.im),
-    )
-    flops = 4 * 2 * n * X * Y * Z * T * ndir * (KI * KD * bd + bi * bd)
-    o_re, o_im = pl.pallas_call(
-        kern,
-        grid=grid,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 2 ** 20,
-        ),
-        in_specs=[kspec, kspec, bspec, bspec,
-                  xspec, xspec, yp, yp, ym, ym],
-        out_specs=(ospec, ospec),
-        out_shape=(
-            jax.ShapeDtypeStruct((n, KO, X, Y, Z, T), x.dtype),
-            jax.ShapeDtypeStruct((n, KO, X, Y, Z, T), x.dtype),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=flops,
-            bytes_accessed=(blocks.size + 2 * x.size) * 2 * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(kron.re, kron.im, blocks.re, blocks.im,
-      x.re, x.im, x.re, x.im, x.re, x.im)
-    return cplx.CArray(o_re, o_im)
-
-
-# ---------------------------------------------------------------------------
-# v3 kernel: software-pipelined X streaming (scratch plane rotation)
-# ---------------------------------------------------------------------------
-#
-# The plane-DMA v1 kernel fetches the x-1/x/x+1 planes as three
-# BlockSpecs, so x is read ~3x from HBM.  Here the grid walks X
-# sequentially and keeps the previous two planes in persistent VMEM
-# scratch: step s receives plane s%X, computes the output for image
-# plane (s-1)%X from (scratch0=s-2, scratch1=s-1, delivered=s), then
-# rotates the scratch.  The grid runs X+2 steps per n-chunk: steps 0 and
-# 1 write garbage to output planes X-1 and 0, which steps X and X+1
-# overwrite with the correct (wrapped) values — fully static, no
-# conditionals.  Y stays whole in the block (toroidal in-VMEM concat);
-# Z/T are in-register rolls.  HBM x-traffic: (X+2)/X ~ 1x.
-#
-# MEASURED (v5e, Wilson 8x8x16x128 x 8 rhs): 5.0 TF/s vs v1's 7.6 in the
-# same harness — like the X-inside v2, the theoretical traffic saving is
-# eaten by serialized scheduling (the sequential X walk plus scratch
-# rotation copies defeat Mosaic's DMA/compute pipelining, which on this
-# toolchain is worth more than the saved HBM reads).  Bit-identical to
-# v1; kept for re-evaluation, NOT dispatched by default.
-
-
-def _kernel_stream(kron_re, kron_im,    # SMEM
-                   b_re, b_im,          # [ndir, BI*BD, 1, Y, Z, T] @ (s-1)%X
-                   xc_re, xc_im,        # [nc, F, 1, Y, Z, T] @ s%X
-                   o_re, o_im,          # out [nc, KO, 1, Y, Z, T] @ (s-1)%X
-                   s0_re, s0_im,        # scratch: plane s-2
-                   s1_re, s1_im,        # scratch: plane s-1
-                   *, offsets, BI, BD, KI, KD, Y, Z, T, nc, kfact=None):
-
-    out_dt = o_re.dtype
-    xin = (xc_re[:, :, 0].astype(jnp.float32),
-           xc_im[:, :, 0].astype(jnp.float32))     # plane s
-    xc = (s1_re[...], s1_im[...])                  # plane s-1 (image)
-    xm = (s0_re[...], s0_im[...])                  # plane s-2
-
-    def shifted(d):
-        ax, sgn = _axis_of(offsets[d])
-        if ax == -1:
-            return xc
-        if ax == 0:
-            return xin if sgn > 0 else xm
-        if ax == 1:
-            if sgn > 0:
-                cat = lambda c: jnp.concatenate([c[:, :, 1:], c[:, :, :1]],
-                                                axis=2)
-            else:
-                cat = lambda c: jnp.concatenate([c[:, :, -1:], c[:, :, :-1]],
-                                                axis=2)
-            return (cat(xc[0]), cat(xc[1]))
-        if ax == 2:
-            sh = (Z - 1) if sgn > 0 else 1
-            return (pltpu.roll(xc[0], sh, 3), pltpu.roll(xc[1], sh, 3))
-        sh = (T - 1) if sgn > 0 else 1
-        return (pltpu.roll(xc[0], sh, 4), pltpu.roll(xc[1], sh, 4))
-
-    _matvec_body(
-        shifted,
-        lambda d, i, j: (b_re[d, i * BD + j, 0].astype(jnp.float32),
-                         b_im[d, i * BD + j, 0].astype(jnp.float32)),
-        lambda sp, i, v: (o_re.__setitem__((slice(None), sp * BI + i, 0),
-                                           v[0].astype(out_dt)),
-                          o_im.__setitem__((slice(None), sp * BI + i, 0),
-                                           v[1].astype(out_dt))),
-        lambda: jnp.zeros_like(xc[0][:, 0]),
-        kron_re, kron_im,
-        ndir=len(offsets), BI=BI, BD=BD, KI=KI, KD=KD, kfact=kfact,
-    )
-    # rotate the pipeline: (s-2) <- (s-1), (s-1) <- s
-    s0_re[...] = s1_re[...]
-    s0_im[...] = s1_im[...]
-    s1_re[...] = xin[0]
-    s1_im[...] = xin[1]
-
-
-def stencil_matvec_soa_stream(
-    blocks: cplx.CArray,
-    kron: Optional[cplx.CArray],
-    x: cplx.CArray,
-    offsets: Sequence[Tuple[int, ...]],
-    bi: int, bd: int,
-    interpret: bool = False,
-    nc: Optional[int] = None,
-) -> cplx.CArray:
-    """X-streaming variant of :func:`stencil_matvec_soa` (same contract)."""
-    ndir, FB = blocks.shape[0], blocks.shape[1]
-    X, Y, Z, T = blocks.shape[2:]
-    n = x.shape[0]
-    if kron is None:
-        kron = cplx.CArray(jnp.ones((ndir, 1, 1), jnp.float32),
-                           jnp.zeros((ndir, 1, 1), jnp.float32))
-    kron = cplx.cmap(lambda a: a.astype(jnp.float32), kron)
-    KI, KD = kron.shape[1], kron.shape[2]
-    F = KD * bd
-    KO = KI * bi
-    assert FB == bi * bd and x.shape[1] == F
-    if nc is not None and n % nc:
-        raise ValueError(f"nc={nc} must divide the column count n={n}")
-    if nc is None:
-        site = Z * T * 4 * 2
-        for c in (8, 4, 2, 1):
-            if n % c:
-                continue
-            tot = (c * F * Y * site * 2 * 2          # xc db + 2 scratch
-                   + ndir * FB * Y * site * 2        # blocks db
-                   + c * KO * Y * site * 2)          # out db
-            if tot <= 40 * 2 ** 20:
-                nc = c
-                break
-        else:
-            nc = 1
-
-    grid = (n // nc, X + 2)
-
-    xspec = pl.BlockSpec((nc, F, 1, Y, Z, T),
-                         lambda inn, s, X=X: (inn, 0, s % X, 0, 0, 0))
-    bspec = pl.BlockSpec((ndir, FB, 1, Y, Z, T),
-                         lambda inn, s, X=X: (0, 0, (s + X - 1) % X, 0, 0, 0))
-    ospec = pl.BlockSpec((nc, KO, 1, Y, Z, T),
-                         lambda inn, s, X=X: (inn, 0, (s + X - 1) % X,
-                                              0, 0, 0))
-    kspec = pl.BlockSpec(memory_space=pltpu.SMEM)
-    scratch = pltpu.VMEM((nc, F, Y, Z, T), jnp.float32)
-
-    kern = functools.partial(
-        _kernel_stream, offsets=tuple(tuple(o) for o in offsets),
-        BI=bi, BD=bd, KI=KI, KD=KD, Y=Y, Z=Z, T=T, nc=nc,
-        kfact=_factor_kron(kron.re, kron.im),
-    )
-    o_re, o_im = pl.pallas_call(
-        kern,
-        grid=grid,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 2 ** 20,
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        in_specs=[kspec, kspec, bspec, bspec, xspec, xspec],
-        out_specs=(ospec, ospec),
-        out_shape=(
-            jax.ShapeDtypeStruct((n, KO, X, Y, Z, T), x.dtype),
-            jax.ShapeDtypeStruct((n, KO, X, Y, Z, T), x.dtype),
-        ),
-        scratch_shapes=[scratch, scratch, scratch, scratch],
-        interpret=interpret,
-    )(kron.re, kron.im, blocks.re, blocks.im, x.re, x.im)
-    return cplx.CArray(o_re, o_im)

@@ -2,7 +2,7 @@
 
 The reference's distribution layer (dist.h:2264-3245) plans box
 intersections, packs fragments, and exchanges them with MPI_Ialltoallv.
-On TPU the same operations are *compiled*: operands are global jax arrays
+Here the same operations are *compiled*: operands are global jax arrays
 carrying shardings; we express the op on global values (reusing the local
 engine, which is sharding-oblivious), attach the requested output sharding,
 and XLA GSPMD emits the all-to-all / collective-permute / psum schedule

@@ -6,7 +6,7 @@ lowers to an all-reduce over the nnz-multiplied gathered array — on a
 (experiments/gather_traffic.py, round-3 VERDICT item 6).  The reference
 runs general BSR through the same halo machinery as stencils: the
 x-gather is a redistribution onto the extended domain
-(bsr.h:2020-2192).  This module is that path for TPU: a host-side plan
+(bsr.h:2020-2192).  This module is that path here: a host-side plan
 remaps every neighbor index into a halo-extended LOCAL frame, one
 ppermute pair per sharded axis exchanges the boundary planes (corners
 ride the sequential per-axis extension), and the gather runs entirely

@@ -1,7 +1,7 @@
 """Partition <-> jax.sharding translation.
 
 The reference moves data with explicit MPI plans derived from partition
-boxes (dist.h).  TPU-native, a partition is realized as a
+boxes (dist.h).  Here a partition is realized as a
 ``jax.sharding.NamedSharding`` over a ``Mesh`` whose axis names are the
 distributed lattice labels; XLA's GSPMD then materializes any
 redistribution as ICI collectives.  This module does the translation and

@@ -1,12 +1,12 @@
 """Multi-host setup: DCN-aware meshes and process initialization.
 
 The reference distributes over MPI ranks (MpiComm, dist.h:126-138) and
-leaves topology to mpirun.  TPU-native, multi-host means one jax process
-per host, all local chips in one global mesh; intra-slice traffic rides
-ICI and cross-host traffic rides DCN, so mesh-axis ORDER matters: axes
-that carry the heavy collectives (contraction psums, halo permutes) must
-map to ICI.  ``make_multihost_mesh`` uses jax's topology-aware device
-ordering to get that right, with lattice labels as axis names like
+leaves topology to mpirun.  Here multi-host means one jax process per
+host, all local cards in one global mesh.  The cards of one host reach
+each other all to all (NVLink), so inside a host the device order does
+not matter; only the axis that crosses hosts does.  ``make_multihost_mesh``
+orders devices process-major and puts the leading factor of the named
+``dcn_axis`` across processes, with lattice labels as axis names like
 ``mesh.make_mesh``.
 
 Single-process (tests, one host) the same helpers degrade gracefully to
@@ -15,7 +15,7 @@ the local device set.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional
 
 import jax
 import numpy as np
@@ -31,8 +31,8 @@ def initialize_distributed(
 ) -> None:
     """Bring up the jax distributed runtime (the mpirun/MPI_Init analog).
 
-    On Cloud TPU all arguments are discovered from the metadata server;
-    pass them explicitly elsewhere.  Idempotent: safe to call when the
+    Pass the coordinator address, process count and id explicitly (no
+    cluster is discovered).  Idempotent: safe to call when the
     runtime is already initialized or the job is single-process.
     """
     try:
@@ -55,50 +55,28 @@ def make_multihost_mesh(
 
     ``axis_sizes``: label -> extent (product must equal the global device
     count).  ``dcn_axis`` names the axis that crosses hosts (usually the
-    data/domain-parallel one); it is mapped to the slowest (cross-host)
-    dimension of the topology-aware device ordering, keeping the other
-    axes on ICI — the analog of the reference putting the outermost
-    lattice label on the node grid (dist.h:3265-3383).
+    data/domain-parallel one): its leading factor spans the processes,
+    the analog of the reference putting the outermost lattice label on
+    the node grid (dist.h:3265-3383).
     """
-    from jax.experimental import mesh_utils
-
     names = list(axis_sizes.keys())
     shape = [axis_sizes[n] for n in names]
     n = int(np.prod(shape))
     if n != len(jax.devices()):
         raise ValueError(
             f"mesh volume {n} != global device count {len(jax.devices())}")
-
-    if dcn_axis is not None and jax.process_count() > 1:
-        if dcn_axis not in axis_sizes:
-            raise ValueError(f"dcn_axis {dcn_axis!r} not in axis_sizes")
-        per_host = [1] * len(names)
-        dcn = [1] * len(names)
-        nproc = jax.process_count()
-        if axis_sizes[dcn_axis] % nproc:
-            raise ValueError(
-                f"dcn axis {dcn_axis!r} ({axis_sizes[dcn_axis]}) must be a "
-                f"multiple of the process count ({nproc})")
-        dcn[names.index(dcn_axis)] = nproc
-        for i, nm in enumerate(names):
-            per_host[i] = axis_sizes[nm] // dcn[i]
-        try:
-            devices = mesh_utils.create_hybrid_device_mesh(
-                per_host, dcn, devices=jax.devices())
-        except ValueError:
-            # no slice topology (CPU multi-process, or a single-slice
-            # pod): order devices process-major so the dcn axis's
-            # leading factor crosses processes — the same placement the
-            # hybrid mesh would produce
-            devs = sorted(jax.devices(),
-                          key=lambda d: (d.process_index, d.id))
-            dcn_pos = names.index(dcn_axis)
-            inner = axis_sizes[dcn_axis] // nproc
-            others = [axis_sizes[nm] for i, nm in enumerate(names)
-                      if i != dcn_pos]
-            arr = np.array(devs).reshape((nproc, inner) + tuple(others))
-            arr = arr.reshape((nproc * inner,) + tuple(others))
-            devices = np.moveaxis(arr, 0, dcn_pos)
-    else:
-        devices = mesh_utils.create_device_mesh(shape, devices=jax.devices())
-    return Mesh(devices, axis_names=tuple(names))
+    devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
+    nproc = jax.process_count()
+    if dcn_axis is None or nproc == 1:
+        return Mesh(np.array(devs).reshape(shape), axis_names=tuple(names))
+    if dcn_axis not in axis_sizes:
+        raise ValueError(f"dcn_axis {dcn_axis!r} not in axis_sizes")
+    if axis_sizes[dcn_axis] % nproc:
+        raise ValueError(
+            f"dcn axis {dcn_axis!r} ({axis_sizes[dcn_axis]}) must be a "
+            f"multiple of the process count ({nproc})")
+    # process-major order: the dcn axis's leading factor crosses processes
+    dcn_pos = names.index(dcn_axis)
+    others = [axis_sizes[nm] for i, nm in enumerate(names) if i != dcn_pos]
+    arr = np.array(devs).reshape((axis_sizes[dcn_axis],) + tuple(others))
+    return Mesh(np.moveaxis(arr, 0, dcn_pos), axis_names=tuple(names))

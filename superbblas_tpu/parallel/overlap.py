@@ -8,7 +8,7 @@ boundary, applied after the exchange completes) — the scheme built by
 ``create_lattice_split`` in the reference test driver
 (tests/bsr.cpp:402-530).
 
-TPU-native, the split happens inside one ``shard_map``:
+Here the split happens inside one ``shard_map``:
 
   1. boundary slabs are posted with ``lax.ppermute`` — XLA lowers these
      to async collective-permute start/done pairs;

@@ -3,7 +3,7 @@
 Re-creates the semantics of the reference's partition layer
 (``include/superbblas/dist.h:39-88, 3265-3509, 3745-3828`` in
 eromero-vlc/superbblas): a distributed tensor is described by one toroidal
-box per (process, component).  In this TPU-native framework partitions are
+box per (process, component).  In this framework partitions are
 *layout metadata*: correctness never depends on them (arrays are global jax
 values); they translate to ``jax.sharding`` specs (see mesh.py) and drive
 benchmark layouts, halo shells, and storage manifests.

@@ -1,12 +1,13 @@
-"""Sharded execution of the SoA/Pallas stencil kernel.
+"""Sharded execution of the SoA stencil kernel in an explicit shard_map.
 
-Under plain GSPMD the hot SoA kernel cannot run on sharded operands
-(pallas_call does not partition itself), so the multi-chip production
-path is explicit: one ``shard_map`` that
+Under GSPMD the kernel partitions itself (``ops/stencil_pallas.py``:
+one halo exchange per apply, X/Y lattice sharding).  This explicit form
+is for callers that hold a mesh and want to control the exchange: one
+``shard_map`` that
 
   1. ppermutes a halo shell of width = stencil radius along each sharded
      lattice axis (blocks and x),
-  2. runs the Pallas kernel on the locally-extended block — its internal
+  2. runs the kernel on the locally-extended block — its internal
      toroidal wraps are wrong only in the outermost shell, which is
      exactly the halo (the shell-contamination argument of
      parallel/powers.py),
@@ -17,8 +18,7 @@ p-shell halo ONCE and apply the kernel p times locally (the
 communication-avoiding okr scheme on the hot path).
 
 Constraints: the kernel's lattice-shape rules apply to the *extended
-local* block (4D lattice, T % 128 == 0 and Z % 8 == 0 and unsharded on
-those axes — shard X and/or Y).
+local* block (4D lattice); only X and/or Y may be sharded.
 """
 
 from __future__ import annotations
@@ -26,7 +26,6 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import jax
-import jax.numpy as jnp
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec
 
@@ -44,18 +43,17 @@ def apply_stencil_soa_sharded(
     mesh: Mesh,
     axes: Dict[str, Optional[str]],
     power: int = 1,
-    interpret: Optional[bool] = None,
+    interpret: bool = False,
 ):
-    """y = A^power x on a lattice-sharded SoA operand through the Pallas
+    """y = A^power x on a lattice-sharded SoA operand through the stencil
     kernel (one halo exchange total).
 
     ``x``: CArray [n, KD*BD, X, Y, Z, T] sharded on lattice axes per
     ``axes`` (lattice label -> mesh axis; only the first two lattice
     axes may be sharded).  ``op`` must be an SoA-layout operator with the
     same sharding on its blocks.  Returns [n, KI*BI, X, Y, Z, T] with the
-    input sharding.  ``interpret=True`` forces the Pallas kernel in
-    interpreter mode (the virtual-mesh validation path — the driver's
-    multi-chip dry run exercises the REAL kernel this way).
+    input sharding.  ``interpret=True`` runs the kernel in the Pallas
+    interpreter (the virtual-CPU-mesh validation path).
     """
     if op.mode != "stencil_soa":
         raise ValueError("requires an SoA-layout stencil operator")
@@ -72,8 +70,7 @@ def apply_stencil_soa_sharded(
             continue
         if k >= 2:
             raise ValueError(
-                "only the first two lattice axes (X, Y) may be sharded: "
-                "Z/T ride the kernel's register tiles")
+                "only the first two lattice axes (X, Y) may be sharded")
         if op.dim_d[k] % mesh.shape[nm]:
             raise ValueError(f"lattice axis {c!r} must divide evenly")
         w = power * radius[k]
@@ -88,7 +85,7 @@ def apply_stencil_soa_sharded(
 
     nx_lead = 2  # [n|ndir, features] lead both operands
 
-    def body(blocks_l, kron_l, x_l):
+    def body(blocks_l, x_l):
         ax_arr_b = {nx_lead + k: nm for k, nm in ax_names.items()}
         w_arr = {nx_lead + k: widths[k] for k in widths}
         blocks_e = _extend(blocks_l, ax_arr_b, w_arr, mesh)
@@ -99,7 +96,7 @@ def apply_stencil_soa_sharded(
             blk_i=op.blk_i, blk_d=op.blk_d, dim_i=loc_dim, dim_d=loc_dim,
             bi=op.bi, bd=op.bd, mode="stencil_soa", blocks=blocks_e,
             offsets=op.offsets,
-            kron=kron_l if op.kron is not None else None,
+            kron=op.kron,
             kron_i=op.kron_i, kron_d=op.kron_d, ki=op.ki, kd=op.kd,
         )
         from ..bsr import apply_stencil_soa
@@ -110,10 +107,11 @@ def apply_stencil_soa_sharded(
 
         return crop_halos(cur, w_arr)
 
-    kron_in = op.kron if op.kron is not None else jnp.zeros((0,))
+    # the replicated spin factors are closed over, not passed: concrete
+    # factors stay trace-time constants of the kernel body
     return shard_map(
         body, mesh=mesh,
-        in_specs=(spec_b, PartitionSpec(), spec_x),
+        in_specs=(spec_b, spec_x),
         out_specs=spec_x,
         check_vma=False,
-    )(op.blocks, kron_in, x)
+    )(op.blocks, x)

@@ -2,7 +2,7 @@
 
 The reference exposes ``clearCaches`` (alloc.h:440: drop the buffer cache
 and the LRU metadata caches, e.g. to recover from allocation pressure)
-and ``reportCacheUsage`` (performance.h:436-454).  TPU-native, the
+and ``reportCacheUsage`` (performance.h:436-454).  Here the
 corresponding caches are:
 
   * the redistribution plan LRU (parallel/redistribute.make_plan —

@@ -1,6 +1,6 @@
 """Built-in verification utilities — the SBT_DEBUG ladder.
 
-TPU-native re-creation of the reference's debug nets:
+JAX re-creation of the reference's debug nets:
   * mock-index copy verification (dist.h:1919-2116): replay a copy with
     tensors whose values are global linear indices and compare against an
     independently computed truth;

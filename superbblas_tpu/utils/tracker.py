@@ -1,6 +1,6 @@
 """Performance tracking: hierarchical call-path timing + roofline report.
 
-TPU-native re-creation of the reference's tracker subsystem
+JAX re-creation of the reference's tracker subsystem
 (``include/superbblas/performance.h:196-431`` in eromero-vlc/superbblas):
 RAII scopes build a "a/b/c" call path; each scope accumulates wall time,
 call count, and flop/byte attributions; ``report_timings`` prints per-path

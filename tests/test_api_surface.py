@@ -32,7 +32,7 @@ MODULES = [
     "superbblas_tpu.ops.contract",
     "superbblas_tpu.ops.reduce",
     "superbblas_tpu.ops.stencil_pallas",
-    "superbblas_tpu.ops.permute_pallas",
+    "superbblas_tpu.utils.compile_cache",
     "superbblas_tpu.utils",
     "superbblas_tpu.utils.tracker",
     "superbblas_tpu.utils.testing",
@@ -81,7 +81,7 @@ def test_reference_parity_inventory():
         "close_storage": sbt.storage.close_storage,
         # platform.h / dist.h Request
         "createCpuContext": sbt.context.create_cpu_context,
-        "createGpuContext": sbt.context.create_tpu_context,
+        "createGpuContext": sbt.context.create_gpu_context,
         "wait": sbt.context.wait,
         # alloc.h / cache.h / performance.h
         "clearCaches": sbt.utils.clear_caches,

@@ -6,6 +6,7 @@ dense-matrix numpy oracle; (3) kron-factored vs materialized equivalence;
 (4) operator powers; (5) sharded-lattice execution.
 """
 
+import dataclasses
 import itertools
 
 import jax
@@ -359,11 +360,9 @@ def test_sharded_lattice_matvec():
     mesh = par.make_mesh({"X": 4, "Y": 2})
     sx = NamedSharding(mesh, P("X", "Y", None, None))
     xd = jax.device_put(jnp.asarray(x), sx)
-    op_sharded = B.BSROperator(
-        **{**op.__dict__,
-           "blocks": jax.device_put(
-               op.blocks, NamedSharding(mesh, P("X", "Y", None, None, None)))},
-    )
+    op_sharded = dataclasses.replace(
+        op, blocks=jax.device_put(
+            op.blocks, NamedSharding(mesh, P("X", "Y", None, None, None))))
     fn = jax.jit(lambda xx: B.bsr_krylov(1.0, op_sharded, xx, "XYsn"))
     got = fn(xd)
     want = dense_oracle(dim, offs, vals, x)
@@ -396,10 +395,8 @@ def test_sharded_gather_mode_matvec():
     x = rng.standard_normal((8, 2, 3))
     xd = jax.device_put(jnp.asarray(x),
                         NamedSharding(mesh, P("X", None, None)))
-    op_sh = B.BSROperator(**{
-        **op.__dict__,
-        "blocks": jax.device_put(
-            op.blocks, NamedSharding(mesh, P("X", None, None, None)))})
+    op_sh = dataclasses.replace(op, blocks=jax.device_put(
+        op.blocks, NamedSharding(mesh, P("X", None, None, None))))
     got = jax.jit(lambda xx: B.bsr_krylov(1.0, op_sh, xx, "Xcn"))(xd)
     want = np.zeros((8, 2, 3))
     for s in range(8):
@@ -417,10 +414,8 @@ def test_sharded_gather_mode_matvec():
     xk = rng.standard_normal((8, KD, 2, 3))
     xkd = jax.device_put(jnp.asarray(xk),
                          NamedSharding(mesh, P("X", None, None, None)))
-    kop_sh = B.BSROperator(**{
-        **kop.__dict__,
-        "blocks": jax.device_put(
-            kop.blocks, NamedSharding(mesh, P("X", None, None, None)))})
+    kop_sh = dataclasses.replace(kop, blocks=jax.device_put(
+        kop.blocks, NamedSharding(mesh, P("X", None, None, None))))
     gotk = jax.jit(lambda xx: B.bsr_krylov(1.0, kop_sh, xx, "XScn"))(xkd)
     wantk = np.zeros((8, KI, 2, 3))
     for s in range(8):
@@ -457,7 +452,7 @@ def test_open_boundary_wilson_runs_stencil_path():
     """The practical near-uniform case: an open-boundary (non-toroidal
     in t) Wilson-like operator — boundary rows lose an offset but the
     union stays the full stencil, so the operator runs the roll-based
-    MXU path with zeroed boundary blocks instead of the gather plan."""
+    GEMM path with zeroed boundary blocks instead of the gather plan."""
     dim = (4, 6)
     full = [(0, 0), (1, 0), (-1, 0), (0, 1), (0, -1)]
     maxnnz = len(full)

@@ -46,8 +46,7 @@ def test_aot_compile_and_export(tmp_path):
 
 def test_aot_export_carray_step(tmp_path):
     """CArray-signature functions (the flagship step) export/reload
-    through jax.export (on TPU this round-trips the Pallas kernel
-    bit-exactly; here the CPU fallback path)."""
+    through jax.export (here the CPU reference path)."""
     import numpy as np
 
     from superbblas_tpu import cplx

@@ -1,4 +1,4 @@
-"""Split-complex (cplx.CArray) unit tests: the TPU-native complex layer."""
+"""Split-complex (cplx.CArray) unit tests: the split-complex layer."""
 
 import jax
 import jax.numpy as jnp

@@ -434,8 +434,7 @@ def test_domain_wall_r5g5_hermiticity():
 def test_eo_packed_bf16_storage():
     """bf16-stored operators flow through the packed even-odd pipeline
     (hopping slices keep the storage dtype; the kernel accumulates f32):
-    matches the f32 hopping to operand rounding.  Measured 10.6 vs 7.1
-    TF/s on v5e round 2 — the speed mode covers the eo solver too."""
+    matches the f32 hopping to operand rounding."""
     from superbblas_tpu.bsr import bsr_cast_storage
     from superbblas_tpu.models import wilson_operator
     from superbblas_tpu.models.eo_packed import (apply_hopping_packed_soa,
@@ -493,14 +492,14 @@ def test_clover_soa_matches_aos():
 
 
 def test_clover_soa_kernel_interpret():
-    """The 144-channel center-only clover configuration through the REAL
-    Pallas kernel in interpreter mode (review gap: the oracle test only
-    exercised the CPU XLA reference fallback)."""
+    """The 144-channel center-only clover configuration through the
+    Pallas kernel in the interpreter (the oracle tests run the CPU XLA
+    reference)."""
     from superbblas_tpu.bsr import apply_stencil_soa
     from superbblas_tpu.models import wilson_clover_operator
     from superbblas_tpu.ops.stencil_pallas import aos_to_soa
 
-    lat = (2, 2, 8, 128)
+    lat = (2, 2, 4, 8)
     op = wilson_clover_operator(lat, mass=0.3, c_sw=1.2, key=2,
                                 dtype=jnp.complex64, layout="soa")
     rng = np.random.default_rng(1)

@@ -448,9 +448,9 @@ def test_fgcr_unpreconditioned_matches_bicgstab_answer():
 
 
 def test_level_apply_soa_matches_aos():
-    """_level_apply routes SoA-layout operators through the Pallas
-    kernel with layout conversion at the boundary — the whole multigrid
-    cycle rides the hot path on TPU.  Both layouts of the same links
+    """_level_apply routes SoA-layout operators through the SoA stencil
+    with layout conversion at the boundary — the whole multigrid cycle
+    rides the hot path.  Both layouts of the same links
     must agree (normal and plain applies)."""
     import jax.numpy as jnp
 

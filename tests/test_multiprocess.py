@@ -16,7 +16,7 @@ import subprocess
 import sys
 
 _WORKER = r'''
-import os, sys
+import dataclasses, os, sys
 pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 os.environ["SBT_DEBUG"] = "1"   # arm the cross-process consistency net
@@ -63,8 +63,8 @@ rng0 = np.random.default_rng(0)
 shp = (1, 12) + lat
 xs0 = cplx.CArray(jnp.asarray(rng0.standard_normal(shp), jnp.float32),
                   jnp.asarray(rng0.standard_normal(shp), jnp.float32))
-op_sh = type(op)(**{**op.__dict__, "blocks": jax.device_put(
-    op.blocks, NamedSharding(mesh2, spec))})
+op_sh = dataclasses.replace(op, blocks=jax.device_put(
+    op.blocks, NamedSharding(mesh2, spec)))
 x_sh = jax.device_put(xs0, NamedSharding(mesh2, spec))
 y = apply_stencil_soa_sharded(op_sh, x_sh, mesh2, {"x": "d"})
 from superbblas_tpu.bsr import apply_stencil_soa

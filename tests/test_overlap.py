@@ -6,6 +6,7 @@ bsr.h:2353-2359 just_local skips all communication; tests/bsr.cpp:402-530
 builds the core/halo split this module implements natively).
 """
 
+import dataclasses
 import itertools
 
 import jax
@@ -126,8 +127,7 @@ def test_soa_sharded_matches_unsharded(mesh):
 
     sh = NamedSharding(mesh, P(None, None, "X", "Y", None, None))
     xs = jax.device_put(x, sh)
-    op_sh = type(op)(**{**op.__dict__,
-                        "blocks": jax.device_put(op.blocks, sh)})
+    op_sh = dataclasses.replace(op, blocks=jax.device_put(op.blocks, sh))
     y1 = apply_stencil_soa_sharded(op_sh, xs, mesh, {"x": "X", "y": "Y"})
     np.testing.assert_allclose(np.asarray(y1.re), np.asarray(ref1.re),
                                rtol=1e-5, atol=1e-5)
@@ -162,8 +162,8 @@ def test_soa_sharded_bf16_storage():
     x16 = cplx.CArray(x.re.astype(jnp.bfloat16), x.im.astype(jnp.bfloat16))
 
     def put(o, v):
-        o2 = type(o)(**{**o.__dict__, "blocks": jax.device_put(
-            o.blocks, NamedSharding(mesh, spec))})
+        o2 = dataclasses.replace(o, blocks=jax.device_put(
+            o.blocks, NamedSharding(mesh, spec)))
         return o2, jax.device_put(v, NamedSharding(mesh, spec))
 
     op_sh, x_sh = put(op, x)

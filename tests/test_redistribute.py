@@ -181,7 +181,7 @@ def test_fuzz_random_toroidal_partitions(mesh1d):
 
 def test_ragged_method_matches_dense(mesh1d):
     """The ragged-layout executor (per-peer variable counts — emulated on
-    CPU, lax.ragged_all_to_all on TPU) produces identical results to the
+    CPU, lax.ragged_all_to_all on the GPU) produces identical results to the
     dense tiled path on every fuzz shape (the MPI_Alltoallv analog,
     dist.h:1502-1548)."""
     from superbblas_tpu.parallel import Partition

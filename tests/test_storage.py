@@ -142,7 +142,7 @@ def test_carray_save_load(tmp_path):
 
 
 def test_crc_is_zlib_compatible():
-    data = b"superbblas-tpu"
+    data = b"superbblas-s3t"
     assert S._crc(data) == zlib.crc32(data) & 0xFFFFFFFF
 
 
